@@ -1,17 +1,19 @@
-"""imsame_tpu -- TPU-native all-vs-all metagenome read comparison engine.
+"""imsame_tpu -- all-vs-all metagenome read comparison engine on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
-C tool IMSAME (Bitlab-UMA/IMSAME, mounted read-only at /root/reference):
-k-mer dictionary seeding, ungapped extension + Karlin-Altschul e-value
-filtering, a quirky semi-global gapped aligner, and per-read
-identity/coverage reporting with sample-level Jaccard similarity.
+A from-scratch JAX/XLA rebuild of the capabilities of the reference C tool
+IMSAME (Bitlab-UMA/IMSAME): k-mer dictionary seeding, ungapped extension +
+Karlin-Altschul e-value filtering, a quirky semi-global gapped aligner,
+and per-read identity/coverage reporting with sample-level Jaccard
+similarity.  On a GPU the accept gate's aligner is a CUDA kernel
+(ops/cuda/nw_stats.cu); everything else is plain jax.numpy/lax.
 
 Layout:
   io/        FASTA ingest, revcomp, report rendering (host, numpy)
   index/     sorted k-mer arrays + vectorized binary search
   oracle/    faithful scalar engine (parity anchor for tests)
-  ops/       batched XLA/Pallas compute: extension, wavefront NW, traceback
+  ops/       batched compute: extension, wavefront NW, traceback
   parallel/  mesh/sharding: data-parallel reads, sharded dictionary
+  native/    host runtime in C (ingest, index build, candidate streams)
   pipeline   single-host batched engine
 """
 
@@ -19,25 +21,20 @@ import os as _os
 
 import jax as _jax
 
-# NOTE: jax_enable_x64 must stay OFF -- enabling it poisons Mosaic's
-# lowering of the Pallas wavefront kernel ("failed to legalize func.return")
-# even when every array in the kernel is explicitly int32.  All
-# parity-critical 64-bit arithmetic (e-value thresholds, accept gates,
-# cell tallies) therefore runs on the host in numpy float64/int64.
+# jax_enable_x64 stays OFF: every device array is int32/uint32/uint8 by
+# design, and the 64-bit arithmetic that parity depends on (e-value
+# thresholds, accept gates, cell tallies) runs on the host in numpy
+# float64/int64.
 
-# Persistent compilation cache: the first TPU compile of the wavefront loop
-# pays a large one-time backend warmup; caching executables across
-# processes removes it from every later run.
-_cache_dir = _os.environ.get(
-    "IMSAME_TPU_JAX_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "imsame_tpu", "jax_cache"),
+# Persistent compilation cache: where JAX_COMPILATION_CACHE_DIR points if
+# it is set (JAX reads it itself), else a fixed directory inside the
+# checkout (listed in .gitignore) -- a fixed path, because the path is
+# part of the cache key.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
 )
-if _cache_dir:
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 __version__ = "0.1.0"

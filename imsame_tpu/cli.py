@@ -2,7 +2,7 @@
 
 Reference parser: init_args (src/IMSAME.c:520-578).  Same flags, same
 defaults, same quirks (-igap/-egap negate user input; --verbose accepted
-and ignored).  Additional engine tunables are namespaced under --tpu-*.
+and ignored).  Additional engine tunables are namespaced under --engine-*.
 """
 
 from __future__ import annotations
@@ -40,13 +40,13 @@ REFERENCE_HELP = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="imsame-tpu",
-        description="TPU-native all-vs-all metagenome read comparison "
+        description="all-vs-all metagenome read comparison on JAX "
         "(capabilities of the reference IMSAME binary)",
         add_help=False,  # --help is reference-parity (REFERENCE_HELP);
-        # the argparse-generated help lives on --help-tpu
+        # the argparse-generated help lives on --help-engine
     )
-    p.add_argument("--help-tpu", action="help",
-                   help="full flag listing (incl. --tpu-* engine tunables)")
+    p.add_argument("--help-engine", action="help",
+                   help="full flag listing (incl. --engine-* tunables)")
     p.add_argument("-query", required=True, help="query FASTA")
     p.add_argument("-db", required=True, help="database FASTA")
     p.add_argument("-out", default=None, help="alignment report output path")
@@ -61,9 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gap extend penalty (negated, like the reference)")
     p.add_argument("--verbose", action="store_true",
                    help="accepted for compatibility; ignored (as upstream)")
-    p.add_argument("--tpu-first-window", type=int, default=8,
+    p.add_argument("--engine-first-window", type=int, default=8,
                    help="candidates gated per read in stage 1")
-    p.add_argument("--tpu-gate-chunks", type=str, default="524288,65536",
+    p.add_argument("--engine-gate-chunks", type=str, default="524288,65536",
                    help="fixed flat-gate chunk sizes (comma-separated)")
     return p
 
@@ -82,9 +82,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         igap=-args.igap,
         egap=-args.egap,
         n_threads=max(1, args.n_threads),
-        first_window=args.tpu_first_window,
+        first_window=args.engine_first_window,
         gate_chunks=tuple(
-            int(x) for x in args.tpu_gate_chunks.split(",") if x
+            int(x) for x in args.engine_gate_chunks.split(",") if x
         ),
     )
 

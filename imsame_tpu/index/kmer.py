@@ -1,6 +1,6 @@
 """Sorted k-mer index over a database sample.
 
-TPU-native replacement for the reference's 4^12 pointer table with per-bucket
+Array replacement for the reference's 4^12 pointer table with per-bucket
 linked lists (reference: Container at src/alignmentFunctions.h:4-6, build loop
 at src/IMSAME.c:232-281, llpos at src/structs.h:26-30).  Instead of 128 MB of
 host pointers we store three flat arrays sorted by (key asc, pos desc):

@@ -1,10 +1,11 @@
 """ctypes loader for the native host runtime (native/host.c).
 
-Compiles host.c with the system gcc on first import (cached as _libhost.so
-next to the source, rebuilt when the source is newer) and exposes typed
-wrappers.  Everything degrades gracefully: if no compiler is available the
-module exports ``lib = None`` and callers fall back to their numpy paths --
-the results are bit-identical either way (tests/test_native.py).
+Compiles host.c with the system gcc on first import, into the checkout's
+build directory under a name keyed by a hash of the source and the
+command (imsame_tpu/_build.py), and exposes typed wrappers.  Everything
+degrades gracefully: if no compiler is available the module exports
+``lib = None`` and callers fall back to their numpy paths -- the results
+are bit-identical either way (tests/test_native.py).
 
 The extension deliberately avoids pybind11/numpy C API: plain C symbols +
 ctypes keeps the build a single gcc invocation with zero Python build-time
@@ -16,13 +17,13 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
+from pathlib import Path
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "host.c")
-_SO = os.path.join(_HERE, "_libhost.so")
+from .._build import build_library
+
+SRC = Path(__file__).resolve().parent / "host.c"
 
 i8 = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 i32 = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -30,28 +31,17 @@ u32 = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
 i64 = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 
 
-def _build() -> bool:
-    cmd = [
+def gcc_command(out: str) -> list:
+    return [
         "gcc", "-O3", "-shared", "-fPIC", "-fvisibility=hidden",
-        _SRC, "-o", _SO + ".tmp", "-lpthread",
+        str(SRC), "-o", out, "-lpthread",
     ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(_SO + ".tmp", _SO)  # atomic: parallel importers race safely
-        return True
-    except (OSError, subprocess.SubprocessError):
-        return False
 
 
 def _load():
     try:
-        if not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-        ):
-            if not _build():
-                return None
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+        lib = ctypes.CDLL(str(build_library("host", SRC, gcc_command)))
+    except (OSError, subprocess.SubprocessError):
         return None
 
     lib.imsame_index_build.restype = ctypes.c_int64

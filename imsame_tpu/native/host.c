@@ -1,6 +1,6 @@
 /* Native host runtime for imsame_tpu.
  *
- * The TPU does the alignment math; these routines are the host side of the
+ * The device does the alignment math; these routines are the host side of the
  * pipeline -- index construction and candidate-stream expansion -- where the
  * reference spends its single-threaded C time (dict build src/IMSAME.c:232-281,
  * per-thread k-mer scan src/alignmentFunctions.c:91-121).  They replace the

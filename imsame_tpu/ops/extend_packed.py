@@ -1,11 +1,11 @@
-"""Packed-row ungapped extension: the gather-light TPU formulation.
+"""Packed-row ungapped extension: the gather-light formulation.
 
 Same semantics as ops/extend.py's ``extend_batch`` (which is validated
 against the scalar oracle of the reference extension at
 src/alignmentFunctions.c:276-387), but reformulated so the device never
-does per-base random gathers from the concatenated sequence arrays --
-those dominate wall time on TPU (measured ~0.11 Mcand/s; gathers of
-4 x window bytes per candidate).
+does per-base random gathers from the concatenated sequence arrays
+(4 x window single-byte gathers per candidate, which dominated the gate's
+time on the accelerator the engine was first built for).
 
 Key facts making this possible:
 
@@ -87,11 +87,11 @@ def _last_true(mask: jax.Array, size: int) -> jax.Array:
 
 
 # Rows up to this many packed words are fetched whole (one row gather)
-# instead of as per-word element gathers: TPU row gathers run ~2x faster
-# than scattered element gathers of the same window (measured 8.8 vs 4.2
-# Mcand/s at W=32), and the in-register word extraction is free VPU work.
-# Above the threshold the full row would dwarf the window, so the flat
-# element gather wins.
+# instead of as per-word element gathers: row gathers ran ~2x faster than
+# scattered element gathers of the same window on the accelerator the
+# engine was first built for.  Above the threshold the full row would
+# dwarf the window.  The threshold is inherited and not yet measured on
+# the GPU.
 ROW_GATHER_MAX_WORDS = 32
 
 

@@ -14,7 +14,7 @@ and the mf/mc trackers advance exactly once per (row, diagonal) /
 (column, diagonal), so the whole recurrence -- quirks included -- maps onto
 a wavefront with carried state vectors.
 
-Key layout decision (TPU-friendly: no gathers/scatters in the hot loop):
+Key layout decision (no gathers/scatters in the hot loop):
 everything is kept in *row-aligned diagonal coordinates*.  For the cells of
 diagonal d, index i is the row; the column is j = d - i.  Then:
 
@@ -282,16 +282,16 @@ def nw_stats_batch(
 
     Both stats ride ONE int32 word w = len + (id << 16): every update is
     an add or a select, len < 2*MAX_READ_SIZE < 2^16 never carries into
-    the id half, and the packing halves the carried wavefront state (the
-    kernel is VPU-ALU-bound, so fewer vector ops = proportionally faster).
+    the id half, and the packing halves the carried wavefront state.
 
     Why this exists: acceptance (coverage/identity, reference
     src/alignmentFunctions.c:163) needs only (length, identities, ylen) --
     the full chain is needed only to *render* accepted pairs.  Dropping bp
-    removes ~0.5 MB/pair of HBM writes at L=256 (the round-1 bandwidth
-    ceiling); the report path re-runs the bp kernel on accepted pairs only.
-    Bit-equality with nw_forward_batch + traceback_batch is proven in
-    tests/test_nw_stats.py.
+    removes ~0.5 MB/pair of device-memory writes at L=256; the report path
+    re-runs the bp kernel on accepted pairs only.  Bit-equality with
+    nw_forward_batch + traceback_batch is proven in tests/test_nw_stats.py.
+    On a GPU the accept gate runs ops/cuda/nw_stats.cu instead, which is
+    bit-equal to this function (chip_smoke.py); this is its reference.
     """
     B, L = X.shape
     assert L == max_len

@@ -41,97 +41,6 @@ class TracebackResult(NamedTuple):
     n_steps: jax.Array  # [B] int32 number of valid entries in chain
 
 
-@functools.partial(jax.jit, static_argnames=("max_len", "stream_k"))
-def traceback_batch_stream(
-    bp: jax.Array,  # [R, (K+1)L, L] int32 stream bp (pipe5 kernel)
-    best_i: jax.Array,  # [B] int32
-    best_j: jax.Array,  # [B] int32
-    X: jax.Array,  # [B, L] uint8
-    Y: jax.Array,  # [B, L] uint8
-    *,
-    max_len: int,
-    stream_k: int,
-) -> TracebackResult:
-    """traceback_batch over the STREAM bp layout
-    (nw_forward_batch_pallas_pipe5): pair b = r*stream_k + k reads its
-    cell (i, j) at bp[r, k*L + i + j, i] -- a pure per-pair offset on
-    the diagonal index, so only the gather address changes."""
-    R, NS, L = bp.shape
-    assert L == max_len
-    B = best_i.shape[0]
-    K = stream_k
-    assert R * K == B
-    CH = 2 * L
-    bp_flat = bp.reshape(R, NS * L)
-    row = (jnp.arange(B, dtype=jnp.int32) // K).astype(jnp.int32)
-    koff = (jnp.arange(B, dtype=jnp.int32) % K) * jnp.int32(L)
-
-    chain0 = jnp.full((B, CH), -1, jnp.int32)
-    chain0 = chain0.at[:, 0].set(best_i * PACK + best_j)
-
-    def cond(state):
-        px, py, t, *_ = state
-        return jnp.any((px > 0) & (py > 0)) & (t < CH - 1)
-
-    def body(state):
-        px, py, t, length, ident, igaps, egaps, chain = state
-        active = (px > 0) & (py > 0)
-
-        flat_idx = jnp.clip(
-            (koff + px + py) * L + px, 0, NS * L - 1
-        )
-        word = bp_flat[row, flat_idx]
-        frm = word & BP_MASK
-        run = (word >> 24) & 15
-        mrun = (word >> 28) & 15
-        gx = frm // PACK
-        gy = frm - gx * PACK
-        is_run = run > 0
-        fx = jnp.where(is_run, px - run, gx)
-        fy = jnp.where(is_run, py - run, gy)
-
-        dx = px - fx
-        dy = py - fy
-        is_gapx = (~is_run) & (dx > dy)
-
-        add_len = jnp.where(is_run, run, jnp.where(is_gapx, dx, dy))
-        add_id = jnp.where(is_run, mrun, 0)
-        add_ig = jnp.where(is_run, 0, 1)
-        add_eg = jnp.where(is_run, 0, jnp.where(is_gapx, dx - 1, dy - 1))
-
-        length = jnp.where(active, length + add_len, length)
-        ident = jnp.where(active, ident + add_id, ident)
-        igaps = jnp.where(active, igaps + add_ig, igaps)
-        egaps = jnp.where(active, egaps + add_eg, egaps)
-
-        entry = jnp.where(
-            is_run, (fx * PACK + fy) | jnp.int32(RUN_FLAG), fx * PACK + fy
-        )
-        chain = chain.at[:, t + 1].set(
-            jnp.where(active, entry, chain[:, t + 1])
-        )
-        px = jnp.where(active, fx, px)
-        py = jnp.where(active, fy, py)
-        return (px, py, t + 1, length, ident, igaps, egaps, chain)
-
-    z = jnp.zeros((B,), jnp.int32)
-    state = (
-        best_i.astype(jnp.int32),
-        best_j.astype(jnp.int32),
-        jnp.int32(0),
-        z,
-        z,
-        z,
-        z,
-        chain0,
-    )
-    px, py, t, length, ident, igaps, egaps, chain = jax.lax.while_loop(
-        cond, body, state
-    )
-    n_steps = jnp.sum(chain != -1, axis=1) - 1
-    return TracebackResult(length, ident, igaps, egaps, chain, n_steps)
-
-
 @functools.partial(jax.jit, static_argnames=("max_len",))
 def traceback_batch(
     bp: jax.Array,  # [B, 2L-1, L] int32 from nw_forward_batch

@@ -1,4 +1,4 @@
-"""Faithful sequential engine -- the behavioral oracle for the TPU pipeline.
+"""Faithful sequential engine -- the behavioral oracle for the batched pipeline.
 
 Reproduces the reference worker loop computeAlignmentsByThread
 (src/alignmentFunctions.c:43-208) semantics exactly, including:
@@ -17,7 +17,7 @@ Reproduces the reference worker loop computeAlignmentsByThread
     and ends the scan, which is what we do deterministically.
 
 Slow (scalar Python); intended for tests on small inputs and as the parity
-anchor for the batched TPU engine.
+anchor for the batched engine.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ step for step, including its quirks (SURVEY.md section 6.6):
   * the e-value multiplies the full query-read length by the *total*
     database length (not the fragment length).
 
-Used as the behavioral oracle for the batched TPU extension kernel.
+Used as the behavioral oracle for the batched extension kernel.
 """
 
 from __future__ import annotations

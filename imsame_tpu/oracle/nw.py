@@ -23,8 +23,8 @@ buffers whose last written index is 2*max(xlen, ylen); gap runs emit the run
 plus the aligned char of the moving side, and head padding uses spaces on
 the side that reached the matrix edge.
 
-This module is the behavioral oracle for the batched Pallas wavefront kernel
-in imsame_tpu/ops/nw.py.
+This module is the behavioral oracle for the batched wavefront aligners in
+imsame_tpu/ops/nw.py and imsame_tpu/ops/cuda/nw_stats.cu.
 """
 
 from __future__ import annotations

@@ -176,9 +176,7 @@ def make_engine_gate_step_wide(
     return jax.jit(gate)
 
 
-def make_engine_nw_stats_step(
-    mesh: Mesh, max_len: int, use_pallas: bool, pipe: bool = False
-):
+def make_engine_nw_stats_step(mesh: Mesh, max_len: int):
     """Sharded nw_stats_rows twin: pair batch P(None, ('data', 'dict')),
     packed rows and gap scores replicated.  Returns stacked [3, B] stats."""
     from ..ops.resolve import nw_stats_rows
@@ -193,7 +191,7 @@ def make_engine_nw_stats_step(
     def step(qp, dp, rs, qlen, dlen, igap, egap):
         return nw_stats_rows(
             qp, dp, rs, qlen, dlen, igap, egap,
-            max_len=max_len, use_pallas=use_pallas, pipe=pipe,
+            max_len=max_len,
         )
 
     @jax.jit
@@ -206,7 +204,7 @@ def make_engine_nw_stats_step(
     return run
 
 
-def make_engine_nw_render_step(mesh: Mesh, max_len: int, use_pallas: bool):
+def make_engine_nw_render_step(mesh: Mesh, max_len: int):
     """Sharded nw_traceback_rows twin for the render path."""
     from ..ops.resolve import ResolveNWResult, nw_traceback_rows
 
@@ -228,7 +226,7 @@ def make_engine_nw_render_step(mesh: Mesh, max_len: int, use_pallas: bool):
     def step(qp, dp, rs, qlen, dlen, igap, egap):
         return nw_traceback_rows(
             qp, dp, rs[0], rs[1], qlen, dlen, igap, egap,
-            max_len=max_len, use_pallas=use_pallas,
+            max_len=max_len,
         )
 
     @jax.jit

@@ -6,8 +6,6 @@ pair already covered elsewhere:
 
   * oracle parity of the jnp stats aligner at the 512 bucket,
   * jnp stats vs jnp forward+traceback bit-equality at 512..3072,
-  * Pallas (interpret) bit-equality at 512/1024 (plain kernel) and
-    512/3072 (production pipe3 kernel),
   * the render ladder's per-L bp-tensor cap,
   * end-to-end byte parity vs the reference binary with reads spanning
     ~300..3000 bp, including the exact 3000 bp boundary, and the abort
@@ -25,7 +23,6 @@ from imsame_tpu.constants import MAX_READ_SIZE
 from imsame_tpu.io.fasta import read_fasta
 from imsame_tpu.io.report import render_alignment
 from imsame_tpu.ops.nw import nw_forward_batch, nw_stats_batch
-from imsame_tpu.ops.nw_pallas import nw_stats_batch_pallas
 from imsame_tpu.ops.traceback import traceback_batch
 from imsame_tpu.pipeline import TpuEngine
 from util_synth import (
@@ -107,58 +104,9 @@ def test_stats_matches_traceback_long(L, B):
     )
 
 
-@pytest.mark.parametrize("L", [512, 1024])
-def test_stats_pallas_interpret_long(L):
-    """Plain Pallas stats kernel (interpret) == jnp at long buckets."""
-    rng = np.random.default_rng(100 + L)
-    B = 8
-    X, Y, xlen, ylen = _long_pairs(rng, B, L)
-    jX, jY = jnp.asarray(X), jnp.asarray(Y)
-    jxl, jyl = jnp.asarray(xlen), jnp.asarray(ylen)
-    ref = nw_stats_batch(jX, jY, jxl, jyl, -5, -2, max_len=L)
-    got = nw_stats_batch_pallas(
-        jX, jY, jxl, jyl, -5, -2, max_len=L, interpret=True
-    )
-    for f in ("best_score", "best_i", "best_j", "length", "identities"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, f)), np.asarray(getattr(ref, f)), err_msg=f
-        )
-
-
-@pytest.mark.parametrize("L", [512, 3072])
-def test_stats_pallas_pipe3_interpret_long(L):
-    """v3 registerized pipelined kernel (interpret) == jnp at long buckets.
-
-    pipe3 is the production stats dispatch for every length bucket (all
-    default nw_stats_batches are multiples of RBLK2*PIPE2_K=256,
-    ops/resolve.py) -- the unguarded-shift / 13-bit d_loc packing /
-    phase-harvest logic must hold at long L, not just the 128/256 shapes
-    the short tests cover (ADVICE r4)."""
-    from imsame_tpu.ops.nw_pallas import (
-        PIPE2_K,
-        RBLK2,
-        nw_stats_batch_pallas_pipe3,
-    )
-
-    rng = np.random.default_rng(200 + L)
-    B = RBLK2 * PIPE2_K  # minimum legal pipe3 batch (256 pairs)
-    X, Y, xlen, ylen = _long_pairs(rng, B, L)
-    jX, jY = jnp.asarray(X), jnp.asarray(Y)
-    jxl, jyl = jnp.asarray(xlen), jnp.asarray(ylen)
-    ref = nw_stats_batch(jX, jY, jxl, jyl, -5, -2, max_len=L)
-    got = nw_stats_batch_pallas_pipe3(
-        jX, jY, jxl, jyl, -5, -2, max_len=L, interpret=True
-    )
-    for f in ("best_score", "best_i", "best_j", "length", "identities"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(got, f)), np.asarray(getattr(ref, f)), err_msg=f
-        )
-
-
 def test_render_ladder_caps_bp_tensor():
     """The render ladder must keep B * 8L^2 under the configured budget
-    for every length bucket (VERDICT r3: 256 pairs at 3072 would be
-    ~19 GB on a 16 GB chip)."""
+    for every length bucket (256 pairs at 3072 would be ~19 GB)."""
     db = _tiny_seqinfo()
     eng = TpuEngine(db, Config(mesh_shape=None))
     budget = eng.cfg.nw_render_bp_budget

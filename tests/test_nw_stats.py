@@ -1,5 +1,6 @@
-"""Bit-equality of the stats-only aligner (ops/nw.py nw_stats_batch and its
-Pallas twin) against the backpointer path nw_forward_batch + traceback_batch.
+"""Bit-equality of the stats-only aligner (ops/nw.py nw_stats_batch, the
+reference of the GPU kernel ops/cuda/nw_stats.cu) against the backpointer
+path nw_forward_batch + traceback_batch.
 
 The accept gate (reference src/alignmentFunctions.c:163) consumes only
 (length, identities, ylen); the stats aligner propagates those through the
@@ -11,7 +12,6 @@ import jax.numpy as jnp
 import pytest
 
 from imsame_tpu.ops.nw import nw_forward_batch, nw_stats_batch
-from imsame_tpu.ops.nw_pallas import nw_stats_batch_pallas
 from imsame_tpu.ops.traceback import traceback_batch
 
 
@@ -54,215 +54,3 @@ def test_stats_matches_traceback(seed):
     np.testing.assert_array_equal(np.asarray(st.best_j), np.asarray(res.best_j))
     np.testing.assert_array_equal(np.asarray(st.length), np.asarray(tb.length))
     np.testing.assert_array_equal(np.asarray(st.identities), np.asarray(tb.identities))
-
-
-@pytest.mark.parametrize("seed", [0, 7, 11])
-def test_stats_pallas_pipe_interpret_matches_jnp(seed):
-    """The pipelined multi-pair stats kernel (K pairs streamed per sublane
-    row) must be bit-equal to the jnp stats aligner on ragged mixed
-    batches (B = BBLK * PIPE_K, exercising ramp, steady state, drain)."""
-    from imsame_tpu.ops.nw_pallas import BBLK, PIPE_K, nw_stats_batch_pallas_pipe
-
-    rng = np.random.default_rng(seed)
-    L, B = 128, 2 * BBLK * PIPE_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas_pipe(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_stats_pallas_pipe_interpret_L256():
-    """L > 128 case for the pipelined kernel (ADVICE r2: the pipe kernel
-    was only verified at L=128 before being relied on)."""
-    from imsame_tpu.ops.nw_pallas import BBLK, PIPE_K, nw_stats_batch_pallas_pipe
-
-    rng = np.random.default_rng(23)
-    L, B = 256, BBLK * PIPE_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas_pipe(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_nw_stats_rows_pipe_dispatch_equal():
-    """nw_stats_rows with pipe=True must return the same stacked stats as
-    pipe=False for a pipe-eligible batch (the production dispatch path,
-    pipeline._nw_stats_dispatch)."""
-    from imsame_tpu.ops.extend_packed import pack_stream
-    from imsame_tpu.ops.nw_pallas import BBLK, PIPE_K
-    from imsame_tpu.ops.resolve import nw_stats_rows
-
-    rng = np.random.default_rng(3)
-    L, B = 128, BBLK * PIPE_K
-    n_reads = 32
-    lens = rng.integers(20, L + 1, n_reads).astype(np.int32)
-    codes = rng.integers(0, 4, n_reads * L).astype(np.uint8)
-    rows = pack_stream(codes).reshape(n_reads, -1)
-    r = rng.integers(0, n_reads, B).astype(np.int32)
-    s = rng.integers(0, n_reads, B).astype(np.int32)
-    rs = jnp.asarray(np.stack([r, s]))
-    qp = jnp.asarray(rows)
-    qlen = jnp.asarray(lens)
-    # use_pallas with interpret isn't plumbed through nw_stats_rows, so
-    # compare the jnp path against the pipe kernel in interpret mode via
-    # the underlying batch functions the dispatch selects
-    from imsame_tpu.ops.nw_pallas import nw_stats_batch_pallas_pipe
-    from imsame_tpu.ops.resolve import unpack_rows
-
-    X = unpack_rows(qp, jnp.asarray(s), L)
-    Y = unpack_rows(qp, jnp.asarray(r), L)
-    st = nw_stats_batch(X, Y, qlen[s], qlen[r], -5, -2, max_len=L)
-    sp = nw_stats_batch_pallas_pipe(
-        X, Y, qlen[s], qlen[r], -5, -2, max_len=L, interpret=True
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("seed,L,mult", [(0, 128, 1), (7, 128, 2), (23, 256, 1)])
-def test_stats_pallas_pipe2_interpret_matches_jnp(seed, L, mult):
-    """The v2 pipelined stats kernel (16 pairs per 16-sublane row,
-    associative best-cell fold) must be bit-equal to the jnp stats
-    aligner, including best_score/best_i/best_j tie-breaks (the
-    sequential reference fold reduced to lex-max (s, i, d))."""
-    from imsame_tpu.ops.nw_pallas import (
-        PIPE2_K, RBLK2, nw_stats_batch_pallas_pipe2)
-
-    rng = np.random.default_rng(seed)
-    B = mult * RBLK2 * PIPE2_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas_pipe2(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("seed,L,mult", [(0, 128, 1), (7, 128, 2), (23, 256, 1)])
-def test_stats_pallas_pipe3_interpret_matches_jnp(seed, L, mult):
-    """The v3 registerized pipelined stats kernel (production dispatch:
-    ops/resolve.py) must be bit-equal to the jnp stats aligner, including
-    tie-breaks; covers the harvest-at-handover best accumulator and the
-    unguarded transient shifts."""
-    from imsame_tpu.ops.nw_pallas import (
-        PIPE2_K, RBLK2, nw_stats_batch_pallas_pipe3)
-
-    rng = np.random.default_rng(seed)
-    B = mult * RBLK2 * PIPE2_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas_pipe3(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize(
-    "seed,L,n_blk,rblk",
-    [(3, 128, 2, 64), (11, 256, 2, 64), (5, 128, 2, 32), (9, 128, 2, 16)],
-)
-def test_stats_pallas_pipe4_interpret_matches_jnp(seed, L, n_blk, rblk):
-    """The v4 multi-block interleaved stats kernel (production dispatch
-    for the 256/512/1024 buckets: ops/resolve.py PIPE4_VARIANTS) must be
-    bit-equal to the jnp stats aligner at every production (n_blk, rblk)
-    layout; covers the per-block state separation and the interleaved
-    phase emission."""
-    from imsame_tpu.ops.nw_pallas import (
-        PIPE2_K, nw_stats_batch_pallas_pipe4)
-
-    rng = np.random.default_rng(seed)
-    B = n_blk * rblk * PIPE2_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas_pipe4(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True, n_blk=n_blk, rblk=rblk,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("seed", [0, 7])
-def test_stats_pallas_interpret_matches_jnp(seed):
-    rng = np.random.default_rng(seed)
-    L, B = 128, 16
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    st = nw_stats_batch(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L,
-    )
-    sp = nw_stats_batch_pallas(
-        jnp.asarray(X), jnp.asarray(Y), jnp.asarray(xlen), jnp.asarray(ylen),
-        -5, -2, max_len=L, interpret=True,
-    )
-    for a, b in zip(st, sp):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.parametrize("seed,L", [(3, 128), (11, 256)])
-def test_fwd_pipe5_stream_bp_matches_jnp(seed, L):
-    """Streamed forward+bp kernel (render-path producer, interpret) ==
-    jnp forward + traceback, including the packed from-cell words,
-    diagonal-run compression fields, chains and n_steps (the stream bp
-    layout's per-pair diagonal offset must address exactly)."""
-    from imsame_tpu.ops.nw import nw_forward_batch
-    from imsame_tpu.ops.nw_pallas import (
-        PIPE2_K,
-        RBLK2,
-        nw_forward_batch_pallas_pipe5,
-    )
-    from imsame_tpu.ops.traceback import (
-        traceback_batch,
-        traceback_batch_stream,
-    )
-
-    rng = np.random.default_rng(seed)
-    B = RBLK2 * PIPE2_K
-    X, Y, xlen, ylen = _mixed_pairs(rng, B, L)
-    jX, jY = jnp.asarray(X), jnp.asarray(Y)
-    jxl, jyl = jnp.asarray(xlen), jnp.asarray(ylen)
-    ref = nw_forward_batch(jX, jY, jxl, jyl, -5, -2, max_len=L)
-    tb_ref = traceback_batch(
-        ref.bp, ref.best_i, ref.best_j, jX, jY, max_len=L
-    )
-    bp, bs, bi, bj = nw_forward_batch_pallas_pipe5(
-        jX, jY, jxl, jyl, -5, -2, max_len=L, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(bs), np.asarray(ref.best_score))
-    np.testing.assert_array_equal(np.asarray(bi), np.asarray(ref.best_i))
-    np.testing.assert_array_equal(np.asarray(bj), np.asarray(ref.best_j))
-    tb = traceback_batch_stream(
-        bp, bi, bj, jX, jY, max_len=L, stream_k=PIPE2_K
-    )
-    for f in ("length", "identities", "igaps", "egaps", "chain", "n_steps"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(tb, f)), np.asarray(getattr(tb_ref, f)),
-            err_msg=f,
-        )

@@ -1,4 +1,4 @@
-"""End-to-end parity of the batched TPU engine vs the reference binary and
+"""End-to-end parity of the batched engine vs the reference binary and
 the oracle: identical accepted pairs and byte-identical -out report."""
 
 import random

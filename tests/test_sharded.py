@@ -84,18 +84,18 @@ def test_nw_steps_match_single_device():
     ])
     want = nw_stats_rows(
         qp, qp, jnp.asarray(rs), qlen, qlen, -5, -2,
-        max_len=window, use_pallas=False,
+        max_len=window,
     )
     want_tb = nw_traceback_rows(
         qp, qp, jnp.asarray(rs[0]), jnp.asarray(rs[1]), qlen, qlen, -5, -2,
-        max_len=window, use_pallas=False,
+        max_len=window,
     )
     mesh = make_mesh(n_data=4, n_dict=2)
-    stats = make_engine_nw_stats_step(mesh, window, False)(
+    stats = make_engine_nw_stats_step(mesh, window)(
         qp, qp, jnp.asarray(rs), qlen, qlen, -5, -2
     )
     np.testing.assert_array_equal(np.asarray(want), np.asarray(stats))
-    render = make_engine_nw_render_step(mesh, window, False)(
+    render = make_engine_nw_render_step(mesh, window)(
         qp, qp, jnp.asarray(rs), qlen, qlen, -5, -2
     )
     for a, b in zip(want_tb, render):
